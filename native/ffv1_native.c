@@ -895,7 +895,7 @@ API void ffv1n_find_best_state(const uint8_t *one_state,
 }
 
 /* ------------------------------------------------------------------ */
-/* Segment-copy compaction for the TPU encoder's host-compact finalize
+/* Segment-copy compaction for the device encoder's host-compact finalize
  * (tpu/rc_scan_lanes.py finalize_packed_hostcompact).  The device
  * emits, per lane, carry-resolved byte sections [prefix pcap | group
  * slots NG*C | tail 3] plus per-group valid counts; this walks the

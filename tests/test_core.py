@@ -84,7 +84,7 @@ def test_symbol_unsigned_roundtrip():
 
 def test_provisional_encoder_matches_outstanding():
     """ProvisionalRangeEncoder + carry_resolve must emit the same bytes as
-    the outstanding-byte encoder (basis of the TPU scan kernel)."""
+    the outstanding-byte encoder (basis of the device scan)."""
     from tpu_ffv1.core.rac import ProvisionalRangeEncoder
 
     rng = np.random.RandomState(11)

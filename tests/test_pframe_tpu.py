@@ -1,5 +1,5 @@
 """Device-resident FFV1-P: byte-exactness vs the host FFV1PEncoder and
-full roundtrip through the host/TPU decoders."""
+full roundtrip through the host/device decoders."""
 import numpy as np
 import pytest
 

@@ -115,7 +115,7 @@ def test_slice_count_invariance():
 
 
 def test_tpu_decoder_crc_conceals():
-    """TPU decoder mirrors the host CRC + concealment path
+    """The device decoder mirrors the host CRC + concealment path
     (ffv1dec.c:963-980, :1001-1021)."""
     from tpu_ffv1.tpu.decoder import TPUFFV1Decoder
 

@@ -2,7 +2,7 @@
 
 The reference validates its parallelism by bit-exactness under every
 thread count (tests/fate-run.sh:18-19 parameterizes `threads`; the same
-FATE goldens must pass).  The TPU-native analog: the full production
+FATE goldens must pass).  The device analog: the full production
 encode pipeline under shard_map must emit byte-identical packets on
 1-, 2- and 8-device meshes, and identical to the unsharded host encoder.
 Runs on the conftest's 8 virtual CPU devices.
@@ -48,7 +48,7 @@ def test_mesh_packet_invariance(ndev):
 
 def test_encode_lanes_sharded_jits_once():
     """The sharded encode fn is built and compiled once per
-    (mesh, bits, path) — the round-1 version retraced every call."""
+    (mesh, bits) — the round-1 version retraced every call."""
     import jax.numpy as jnp
     from tpu_ffv1.core import tables as T
     from tpu_ffv1.core.rac import default_state_tables
@@ -185,12 +185,12 @@ def test_mesh_deep_bit_invariance():
             assert np.array_equal(np.asarray(a), b), t
 
 
-def test_mesh_decode_honors_pallas_gate(monkeypatch):
-    """The mesh decode branch must pass the decoder's own kernel gate
-    into decode_lanes_sharded (ADVICE r3 high): on deep-bit streams
-    use_pallas is False (decoder.py gate: coded width <= 10), and
-    sharding.py's platform default must not override it."""
+def test_mesh_decode_honors_scan_choice(monkeypatch):
+    """The mesh decode runs the scan cuda_scan.scan_impl picks for the
+    mesh's platform and the stream's coded width (the XLA scan on this
+    CPU mesh), and reconstructs a 16-bit stream losslessly."""
     import tpu_ffv1.tpu.sharding as sharding
+    from tpu_ffv1.tpu.cuda_scan import scan_impl
     from tpu_ffv1.tpu.decoder import TPUFFV1Decoder
     from tpu_ffv1.tpu.sharding import make_mesh
 
@@ -203,17 +203,20 @@ def test_mesh_decode_honors_pallas_gate(monkeypatch):
     host = FFV1Encoder(params, engine="spec")
     pkt, _ = host.encode_frame(frame)
 
-    seen = {}
-    real = sharding.decode_lanes_sharded
+    seen = []
+    real = sharding.rc_decode_planes
 
-    def spy(*a, **kw):
-        seen["use_pallas"] = kw.get("use_pallas", "MISSING")
-        return real(*a, **kw)
+    def spy(impl, *a):
+        seen.append((impl, a[-2]))
+        return real(impl, *a)
 
-    monkeypatch.setattr(sharding, "decode_lanes_sharded", spy)
-    dec = TPUFFV1Decoder(W, H, host.extradata, mesh=make_mesh(2))
-    assert dec.use_pallas is False      # 16-bit: outside the kernel gate
+    monkeypatch.setattr(sharding, "rc_decode_planes", spy)
+    sharding._FN_CACHE.clear()
+    mesh = make_mesh(2)
+    dec = TPUFFV1Decoder(W, H, host.extradata, mesh=mesh)
+    want = scan_impl(mesh.devices.flat[0].platform, 16)
+    assert dec.scan == want == "xla"
     planes, _ = dec.decode_frame(pkt)
-    assert seen["use_pallas"] is False  # gate propagated into the mesh
+    assert seen == [(want, 16)]          # traced once, inside shard_map
     for a, b in zip(planes, frame):
         assert np.array_equal(np.asarray(a), b)

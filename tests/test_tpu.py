@@ -1,4 +1,4 @@
-"""TPU-path parity: the device stencil + scan kernels must produce the
+"""Device-path parity: the device stencil + scan kernels must produce the
 same bytes as the spec path (and hence as the reference binary)."""
 import numpy as np
 import pytest
@@ -46,7 +46,7 @@ def test_tpu_encoder_byte_exact(label, pix, bits, kw):
         sp, sk = spec.encode_frame(f)
         tp, tk = tpu.encode_frame(f)
         assert sk == tk
-        assert sp == tp, f"frame {i}: TPU bytes differ from spec"
+        assert sp == tp, f"frame {i}: device bytes differ from spec"
 
 
 @pytest.mark.parametrize("label,pix,bits,kw", CONFIGS,
@@ -64,7 +64,7 @@ def test_tpu_decoder_lossless(label, pix, bits, kw):
 
 
 def test_tpu_end_to_end_with_spec_decoder():
-    """TPU encoder's stream must decode on the spec decoder (and thus on
+    """The device encoder's stream must decode on the spec decoder (and thus on
     the reference binary, by test_vs_reference transitivity)."""
     frames = _frames(8, seed=9)
     params = EncoderParams(width=W, height=H, pix_fmt="yuv420p", level=3,

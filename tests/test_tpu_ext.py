@@ -1,4 +1,4 @@
-"""Extended-schedule TPU encode (coded widths 11..17 bits): byte
+"""Extended-schedule device encode (coded widths 11..17 bits): byte
 exactness vs the host encoder for deep YUV and deep RGB content.
 
 The put_symbol row caps (1+min(j,9) / 22+min(i,9), ffv1enc.c:185-231)
@@ -211,10 +211,10 @@ def test_tpu_ext_device_transcode_chain_16bit():
 
 
 def test_ya8_device_paths():
-    """ya8 rides the device tier (round-3 gap): the TPU encoder
+    """ya8 rides the device tier (round-3 gap): the device encoder
     de-interleaves the (H, W, 2) storage into the luma+alpha plane
     pair (alpha on state plane 1, ffv1enc.c:1196) and must be
-    byte-identical to the host encoder; the TPU decoder reconstructs
+    byte-identical to the host encoder; the device decoder reconstructs
     the interleaved array losslessly, for both coders."""
     import numpy as np
     from tpu_ffv1 import EncoderParams, FFV1Encoder

@@ -1,11 +1,12 @@
-"""tpu_ffv1 — a TPU-native FFV1 video codec framework.
+"""tpu_ffv1 — an FFV1 video codec framework with a JAX device pipeline.
 
 Bit-exact FFV1 (versions 0-4, range & Golomb-Rice coders, GOP/P-frame
 context carry-over) with three interchangeable execution paths:
 
   * spec:   pure-Python scalar oracle (tpu_ffv1.codec)
   * native: C host runtime for production host encode/decode (native/)
-  * tpu:    JAX/XLA/Pallas device pipeline (tpu_ffv1.tpu)
+  * tpu:    JAX/XLA device pipeline with CUDA range-coder scans
+            (tpu_ffv1.tpu)
 
 Heavy submodules (jax-backed device classes) load lazily so importing
 the host codec never initializes an accelerator.

@@ -33,7 +33,7 @@ from .play import seek_start
 def build_parser():
     p = argparse.ArgumentParser(
         prog="tpu_ffv1",
-        description="TPU-native FFV1 encoder/decoder")
+        description="FFV1 encoder/decoder (host engines + GPU device path)")
     p.add_argument("-i", dest="input", required=True)
     p.add_argument("-f", dest="fmt", default=None,
                    help="input/output format (rawvideo|avi); inferred "
@@ -247,6 +247,10 @@ def run(argv=None):
     from ..codec.params import EncoderParams
     from ..io import avi as avi_io
     from ..io import rawvideo as raw_io
+
+    if args.engine == "tpu":
+        from ..cache import enable_compile_cache
+        enable_compile_cache()
 
     if args.probe:
         try:

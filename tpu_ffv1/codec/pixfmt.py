@@ -1,4 +1,4 @@
-"""Pixel-format registry for the FFV1 TPU framework.
+"""Pixel-format registry for the FFV1 framework.
 
 Covers every format the reference encoder advertises
 (libavcodec/ffv1enc.c:1425-1438) plus the decoder's reconstruction map

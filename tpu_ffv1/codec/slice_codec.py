@@ -1,7 +1,7 @@
 """Per-slice scalar codec — the bit-exact oracle for slice payloads.
 
 This is the framework's *specification* implementation: simple, sequential,
-and exact.  The native C runtime (native/) and the TPU lax.scan path
+and exact.  The native C runtime (native/) and the device scan path
 (tpu_ffv1/tpu/) are validated byte-for-byte against it.
 
 Behavioral parity references:

@@ -1,7 +1,7 @@
 """Binary adaptive range coder, FFV1 flavor (host-side reference).
 
 This is the Python *oracle* implementation of the coder every other path
-(native C runtime, TPU lax.scan path) must match byte-for-byte.
+(native C runtime, device scan path) must match byte-for-byte.
 
 Behavioral parity references (reference tree, read-only — semantics
 re-derived, not transcribed): libavcodec/rangecoder.h:35-145,
@@ -17,7 +17,7 @@ provisional bytes is held back until the carry is resolved).
 The encoder here *also* exposes the carry-free "provisional byte" stream
 (`emit_provisional`): each renorm emits the 9-bit value low>>8 and a final
 right-to-left carry pass resolves them.  This formulation is mathematically
-identical to the outstanding-byte scheme and is what the TPU scan kernel
+identical to the outstanding-byte scheme and is what the device scan
 uses, because it makes every renorm a fixed-cost O(1) step (the carry pass
 is an associative scan).
 """
@@ -185,7 +185,7 @@ def carry_resolve(provisional: np.ndarray) -> np.ndarray:
     g = bit 8, propagate p = (value == 0xFF and low-byte flag set); the
     carry into byte k-1 is g | (p & carry_in) — an incoming carry never
     cascades past a non-pending byte (uint8 truncation in the reference).
-    This is the host-side mirror of the TPU encoder's final pass.
+    This is the host-side mirror of the device encoder's final pass.
     """
     v = np.asarray(provisional, dtype=np.int64)
     out = np.zeros(len(v), dtype=np.uint8)
@@ -207,7 +207,7 @@ class ProvisionalRangeEncoder:
     ``carry_resolve(prov)[:-1]`` after ``terminate()`` yields exactly the
     bytes the outstanding-byte encoder produces (validated in
     tests/test_core.py).  Used to hand partially-encoded slices (keyframe
-    bit, slice headers) to the TPU scan kernel, which continues from
+    bit, slice headers) to the device scan, which continues from
     (low, range) and appends further provisional values.
     """
 

@@ -40,8 +40,8 @@ asserted against the reference binary in tests/test_filtergraph.py.
 
 Filtering is host-side numpy (IO tier): frames at the CLI boundary are
 host arrays on both ends, and these ops are memory-bound reshuffles a
-TPU round trip would only slow down.  The TPU compute tier starts at
-the codec (tpu_ffv1/tpu).
+device round trip would only slow down.  The device compute tier
+starts at the codec (tpu_ffv1/tpu).
 """
 from __future__ import annotations
 

@@ -11,7 +11,7 @@ tiers for the framework:
   ``info``, override via ``FFV1_LOGLEVEL``
 * debug classes: ``debug_enabled(cls)`` gates expensive dumps; enable
   with a comma list in ``FFV1_DEBUG`` (e.g. ``FFV1_DEBUG=timing,pict``).
-  ``timing`` is used by the TPU pipeline to print per-phase stage times
+  ``timing`` is used by the device pipeline to print per-phase stage times
   (the -benchmark_all analog, ffmpeg.c:611-622).
 
 Kept dependency-free and cheap when disabled (one dict lookup).

@@ -30,7 +30,7 @@ Stream layout (round 2 — single integrated bitstream):
 
   * Prediction is OBMC: each pixel blends the MC predictions of its 4
     nearest block neighbors with exact-integer bilinear tent weights
-    (sum 4B^2; partition of unity), the TPU-idiomatic analog of snow's
+    (sum 4B^2; partition of unity), the vectorized analog of snow's
     add_yblock window.  Intra blocks predict the bit-depth midpoint.
   * Motion search is rate-aware: cost = SAD + LAMBDA * |mv - mv_prev|
     where mv_prev is the same block's previous-frame vector — the same

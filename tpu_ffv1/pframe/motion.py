@@ -5,7 +5,7 @@ builds on — SAD block compare (me_cmp.c:996, me_cmp.h:56 sad[6]),
 candidate-vector search (motion_est.c:904 ff_estimate_p_frame_motion,
 :977 ff_epzs_motion_search) and OBMC prediction (snow.c:327
 ff_snow_pred_block) — but does not wire it into the FFV1 bitstream
-(SURVEY §0.3, §2.4).  This module is the TPU-native equivalent,
+(SURVEY §0.3, §2.4).  This module is the device equivalent,
 implemented as a *framework extension* gated behind experimental=True,
 exactly as the reference gates its unfinished versions
 (ffv1enc.c:703-706).
@@ -118,7 +118,7 @@ def block_motion_search_epzs(cur, ref, prev_mvs, block: int = 16,
                              radius: int = 7, lam: int = 16):
     """Predictor-seeded two-stage search — EPZS's core idea
     (motion_est.c:977 ff_epzs_motion_search: try predictors first,
-    refine locally) recast batched/TPU-style with NO serial chain:
+    refine locally) recast batched and vectorized with NO serial chain:
 
       stage 1: a coarse uniform grid over the window (spacing <= 4)
                PLUS per-block temporal predictors (the same block's and

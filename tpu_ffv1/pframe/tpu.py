@@ -1,5 +1,5 @@
 """Device-resident FFV1-P: the motion-compensated inter codec as one
-fused lane-major TPU pipeline.
+fused lane-major device pipeline.
 
 Round-2's ``pframe/codec.py`` proved the format at host speed (per-block
 Python rac loops, numpy OBMC).  This module runs the whole P-frame
@@ -16,8 +16,8 @@ encode on device:
                     residuals (format v3: the flag is a put_symbol, so
                     the whole post-header payload is one symbol stream)
   entropy scan   -> the production lane scan + finalize
-                    (tpu/encoder.py _scan_finalize: Pallas kernel on
-                    real accelerators, XLA scan elsewhere)
+                    (tpu/encoder.py _scan_finalize: the CUDA kernel on
+                    the GPU, the XLA scan on the CPU)
 
 Reference planes, MV predictor fields and all adaptive states stay
 device-resident across the GOP; keyframes ride the parent intra
@@ -35,8 +35,9 @@ import jax.numpy as jnp
 
 from ..codec.params import EncoderParams
 from ..core import tables as T
-from ..core.intmath import ceil_rshift
-from ..tpu.encoder import PREFIX_CAP, TPUFFV1Encoder
+from ..tpu.cuda_scan import (N_MULTIPLE, device_scan,
+                             rc_decode_planes)
+from ..tpu.encoder import TPUFFV1Encoder
 from ..tpu.residual import load_plane, residuals_and_contexts
 from .codec import BLOCK, LAMBDA
 from .motion import SEARCH_FNS  # noqa: F401  (search mode registry)
@@ -64,9 +65,8 @@ def obmc_predict_dev(ref_pad, mvs, intra, mid: int, by: int, bx: int,
 
     ``bounds`` = ((ylo, yhi), (xlo, xhi)) inclusive MV component ranges
     when the caller can bound them (the encoder: its own search radius).
-    With bounds, the per-pixel 2D gathers — the P pipeline's measured
-    hot spot on TPU (384 of 698 ms at 720p batch 5; dynamic gathers
-    serialize on the VPU) — are replaced by a dense one-hot masked sum
+    With bounds, the per-pixel 2D gathers are replaced by a dense
+    one-hot masked sum
     over the (ny*nx) static edge-clamped shifts of ref, with the block
     fields expanded by repeat + static slice instead of gathers.  All
     int32 adds, so the result is bit-identical to the gather form.
@@ -164,7 +164,7 @@ class TPUFFV1PEncoder(TPUFFV1Encoder):
 
     ``batch`` streams advance in lockstep with a shared GOP cadence;
     lanes = batch x slices.  Keyframes are byte-identical to the intra
-    TPU path (and to the host/reference encoder); P frames are
+    device path (and to the host/reference encoder); P frames are
     byte-identical to the host FFV1PEncoder."""
 
     def __init__(self, params: EncoderParams, batch: int = 1,
@@ -186,7 +186,7 @@ class TPUFFV1PEncoder(TPUFFV1Encoder):
         if rp.bits_per_raw_sample > 15 or rp.colorspace != 0 or \
                 rp.fmt.interleaved:
             raise NotImplementedError(
-                "TPU FFV1-P supports planar YUV/gray input up to 15 "
+                "device FFV1-P supports planar YUV/gray input up to 15 "
                 "bits (residuals code at bits+1)")
         if rp.ac == T.AC_GOLOMB_RICE:
             raise NotImplementedError("FFV1-P requires the range coder")
@@ -194,7 +194,7 @@ class TPUFFV1PEncoder(TPUFFV1Encoder):
             raise NotImplementedError("FFV1-P rides version 3")
         if not self.uniform:
             raise NotImplementedError(
-                "TPU FFV1-P requires a uniform slice grid")
+                "device FFV1-P requires a uniform slice grid")
         self.radius = radius
         g0 = self.geoms[0]
         if g0.width % BLOCK or g0.height % BLOCK:
@@ -225,16 +225,14 @@ class TPUFFV1PEncoder(TPUFFV1Encoder):
         self.p_bits = self.bits + 1
         self.mv_cap = 3 * self.bh * self.bw
         n_res = self.stream_lens[0]
-        pad = self.pallas_chunk * self.unroll
-        self.p_n_max = -(-(self.mv_cap + n_res) // pad) * pad
+        self.p_n_max = -(-(self.mv_cap + n_res) // N_MULTIPLE) * N_MULTIPLE
         self.p_out_cap = self.p_n_max * 3 + 4096
 
         # device-resident inter state
         self.ref_dev = None                        # tuple of (B, H, W)
         self.prev_mvs = jnp.zeros((self.L, self.bh, self.bw, 2),
                                   jnp.int32)
-        self._p_fn = jax.jit(self._frame_pipeline_p,
-                             static_argnames=("use_pallas",))
+        self._p_fn = jax.jit(self._frame_pipeline_p)
 
     # -----------------------------------------------------------------
 
@@ -337,7 +335,7 @@ class TPUFFV1PEncoder(TPUFFV1Encoder):
         return jnp.concatenate(parts_ctx, 1), jnp.concatenate(parts_diff, 1)
 
     def _frame_pipeline_p(self, streams, refs, prev_mvs, states0, lows,
-                          ranges, prefixes, plens, use_pallas=True):
+                          ranges, prefixes, plens):
         """Fused P-frame device pipeline: search -> OBMC -> residual ->
         MV + residual symbol streams -> lane scan -> finalize."""
         cur_l = self._crops(streams[0].astype(jnp.int32))
@@ -361,7 +359,7 @@ class TPUFFV1PEncoder(TPUFFV1Encoder):
 
         out, counts, states_out, overflow, packed, low, rng = \
             self._scan_finalize(ctxs, diffs, acts, states0, lows,
-                                ranges, prefixes, plens, use_pallas,
+                                ranges, prefixes, plens,
                                 bits=self.p_bits, hostcompact=False)
         # inter blocks update the MV predictor field (codec.py:262)
         new_prev = jnp.where(intra[..., None], prev_mvs, mvs)
@@ -403,11 +401,11 @@ class TPUFFV1PEncoder(TPUFFV1Encoder):
             if keyframe:
                 states0 = jnp.full_like(self.states, 128)
                 with phase_timer("tpu-penc", "dispatch-key"):
-                    # staged gather-form -> tree-form -> XLA fallback,
-                    # shared with the parent's _submit_fast
                     (out, counts, states_out, overflow, packed, low,
-                     rng, _rowbytes) = self._dispatch_staged(
-                        cur, states0, lows, ranges, prefixes, plens)
+                     rng, _rowbytes) = self._frame_fn(
+                        cur, states0, jnp.asarray(lows),
+                        jnp.asarray(ranges), jnp.asarray(prefixes),
+                        jnp.asarray(plens))
                 # the keyframe's evolved intra contexts are NOT the
                 # P chain's: the host codec clears a fresh SliceState
                 # at each GOP start (codec.py _PSliceState / ps.ss,
@@ -418,40 +416,11 @@ class TPUFFV1PEncoder(TPUFFV1Encoder):
             else:
                 states0 = self.states
                 with phase_timer("tpu-penc", "dispatch-p"):
-                    # staged fallback, P pipeline: gather-form kernel
-                    # -> select-tree kernel -> XLA scan
-                    while True:
-                        try:
-                            (out, counts, states_out, overflow, packed,
-                             low, rng, new_prev) = self._p_fn(
-                                cur, self.ref_dev, self.prev_mvs,
-                                states0, jnp.asarray(lows),
-                                jnp.asarray(ranges),
-                                jnp.asarray(prefixes),
-                                jnp.asarray(plens),
-                                use_pallas=self.use_pallas)
-                            break
-                        except Exception as e:
-                            if not self.use_pallas:
-                                raise
-                            from ..log import WARNING, log
-                            if self.pallas_gather is not False:
-                                log(WARNING, "tpu-penc", "Pallas "
-                                    "gather-form lookup failed "
-                                    f"({type(e).__name__}); retrying "
-                                    "with select-tree lookups")
-                                self.pallas_gather = False
-                                from ..tpu import encoder as _enc
-                                _enc._GATHER_LOWERING_BROKEN = True
-                            else:
-                                log(WARNING, "tpu-penc", "Pallas "
-                                    f"kernel failed ({type(e).__name__}"
-                                    "); falling back to the XLA scan "
-                                    "path")
-                                self.use_pallas = False
-                            self._p_fn = jax.jit(
-                                self._frame_pipeline_p,
-                                static_argnames=("use_pallas",))
+                    (out, counts, states_out, overflow, packed,
+                     low, rng, new_prev) = self._p_fn(
+                        cur, self.ref_dev, self.prev_mvs, states0,
+                        jnp.asarray(lows), jnp.asarray(ranges),
+                        jnp.asarray(prefixes), jnp.asarray(plens))
                 self.prev_mvs = new_prev
             self.states = states_out
             self.ref_dev = cur
@@ -502,7 +471,7 @@ class TPUFFV1PDecoder:
     """Device FFV1-P decoder: host parses headers + MV sections (a few
     hundred symbols per frame), the residual planes decode as one fused
     lane-major device scan at bits + 1, and OBMC reconstruction runs as
-    a device stencil.  Keyframes ride the intra TPU decoder; reference
+    a device stencil.  Keyframes ride the intra device decoder; reference
     planes stay device-resident across the GOP.
 
     Mirrors FFV1PDecoder (pframe/codec.py) bit-exactly; ``batch``
@@ -519,10 +488,10 @@ class TPUFFV1PDecoder:
         b = self.base
         if not b.uniform:
             raise NotImplementedError(
-                "TPU FFV1-P decode requires a uniform slice grid")
+                "device FFV1-P decode requires a uniform slice grid")
         if b.bits > 8:
             raise NotImplementedError(
-                "TPU FFV1-P decode currently supports 8-bit content")
+                "device FFV1-P decode currently supports 8-bit content")
         self.batch = batch
         self.width, self.height = width, height
         self.L = b.L
@@ -542,9 +511,11 @@ class TPUFFV1PDecoder:
         self.p_states = None
         self.ref_dev = None          # tuple of (B, Hk, Wk) int32 planes
         self.slice_damaged = b.slice_damaged
+        # residuals decode at bits + 1 (CUDA kernel on the GPU, XLA
+        # scan on the CPU)
+        self.scan = device_scan(self.p_bits)
         self._p_dec = jax.jit(self._decode_p_device,
-                              static_argnames=("use_pallas", "qidx",
-                                               "five"))
+                              static_argnames=("qidx", "five"))
 
     # -------------------------------------------------------------
 
@@ -607,31 +578,21 @@ class TPUFFV1PDecoder:
         return mvs, intra, lows, ranges, poss
 
     def _decode_p_device(self, bufs, states0, refs, mvs, intra, lows,
-                         ranges, poss, qidx=0, five=False,
-                         use_pallas=True):
+                         ranges, poss, qidx=0, five=False):
         """Residual plane decode + OBMC reconstruction, one fused
         program.  ``qidx``/``five`` select the quant table / context
         model the slice headers carry (the host decoder reads them per
         slice; the fused path requires them uniform).  Returns (full
         planes tuple, states_out, low, rng, pos)."""
-        from ..tpu.dec_scan_lanes import rc_decode_planes_lanes
-        from ..tpu.rc_dec_pallas import rc_decode_planes_pallas
         b = self.base
         g = b.g
         cc = g.context_counts[qidx]
         specs = tuple((w, h, sp * cc)
                       for (w, h, sp) in b._plane_specs())
         qt = b.qts[qidx]
-        if use_pallas and b.use_pallas:
-            planes_dev, states_out, low, rng, pos = \
-                rc_decode_planes_pallas(
-                    bufs, states0, b.one_tab, b.zero_tab, qt,
-                    lows, ranges, poss, specs, self.p_bits, five)
-        else:
-            planes_dev, states_out, low, rng, pos = \
-                rc_decode_planes_lanes(
-                    bufs, states0, b.one_tab, b.zero_tab, qt,
-                    lows, ranges, poss, specs, self.p_bits, five)
+        planes_dev, states_out, low, rng, pos = rc_decode_planes(
+            self.scan, bufs, states0, b.one_tab, b.zero_tab, qt, lows,
+            ranges, poss, specs, self.p_bits, five)
 
         bits = b.bits
         mid = 1 << (bits - 1)
@@ -700,7 +661,7 @@ class TPUFFV1PDecoder:
         qidx0 = parsed[0][1][0][1]
         if any(sl[1] != qidx0 for pr in parsed for sl in pr[1]):
             raise NotImplementedError(
-                "TPU FFV1-P decode requires a shared quant table "
+                "device FFV1-P decode requires a shared quant table "
                 "across slices; use the host decoder")
         five = bool(b.g.quant_tables[qidx0][3][127])
         if self.p_states is None:

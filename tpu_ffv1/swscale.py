@@ -22,7 +22,7 @@ need, byte-identically to the reference library:
   accuracy only — FATE itself asserts PSNR, not bytes, on RGB
   conversions (tests/ref/vsynth/vsynth1-ffv1-v3-bgr0:4)
 
-Conversions are host-side numpy (IO tier, not the TPU compute path).
+Conversions are host-side numpy (IO tier, not the device compute path).
 """
 from __future__ import annotations
 

@@ -9,9 +9,7 @@ serial per-(slice, plane) dispatch: per frame batch there are now
 n_plane_types chained device scans instead of slices x planes dispatches,
 and every carried quantity is (L, ...)-vectorized.
 
-Gather-starved design (XLA:TPU lowers per-element gathers ~10-100x
-slower than fused vector arithmetic; measured 123 us/pixel-step with
-naive gathers vs the encode scan's ~5 us):
+Gather-free design (the CPU path, and the CUDA kernel's reference):
   * table lookups (quant tables, state-transition tables) run as
     arithmetic binary-select trees over table halves — ~10 fused vector
     ops each, no gather.  Transitions use the single-table identity

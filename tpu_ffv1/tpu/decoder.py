@@ -1,4 +1,4 @@
-"""TPU-path FFV1 decoder driver (version 3+, range coder, planar YUV).
+"""Device FFV1 decoder driver (version 3+, range coder, planar YUV).
 
 Host parses the packet structure (keyframe bit, footer chain, CRCs,
 slice headers — a few dozen symbols); the per-pixel work runs as device
@@ -19,7 +19,6 @@ per-slice scans (dec_scan.py).
 from __future__ import annotations
 
 import functools
-import os
 
 import numpy as np
 
@@ -32,9 +31,8 @@ from ..core.crc import crc32_ieee
 from ..core.rac import RangeDecoder, custom_state_tables, default_state_tables
 from ..core.intmath import ceil_rshift
 from ..codec.context import SliceState, slice_grid
+from .cuda_scan import device_scan, rc_decode_planes
 from .dec_scan import rc_decode_plane
-from .dec_scan_lanes import rc_decode_planes_lanes
-from .rc_dec_pallas import rc_decode_planes_pallas
 
 
 @functools.partial(jax.jit, static_argnames=(
@@ -99,7 +97,7 @@ class TPUFFV1Decoder:
         self.golomb = g.ac == T.AC_GOLOMB_RICE
         self.rgb = g.colorspace == 1
         if self.rgb and self.golomb:
-            raise NotImplementedError("TPU RGB decode requires the "
+            raise NotImplementedError("device RGB decode requires the "
                                       "range coder")
         self.g = g
         self.width = width
@@ -159,34 +157,22 @@ class TPUFFV1Decoder:
               g0.height % (1 << g.chroma_v_shift) == 0)))
         if self.rgb and not self.uniform:
             raise NotImplementedError(
-                "TPU RGB decode requires a uniform slice grid; use the "
+                "device RGB decode requires a uniform slice grid; use the "
                 "host decoder otherwise")
         # ya8 (transparency without chroma at 8 bits, colorspace 0):
         # decoded as a luma + alpha plane pair, returned interleaved
         self.ya = (not self.rgb and g.transparency
                    and not g.chroma_planes and self.bits <= 8)
 
-        # Pallas decode kernel (VMEM-resident states/rows/byte FIFO) on
-        # real accelerators: the distinct-slot decision schedule at
-        # coded widths <= 10, the extended running-row schedule
-        # (rows 10/31 carried inline) for 11..17 — the full format
-        # range, like the encode kernel pair.  FFV1_PALLAS_DEC_EXT=0
-        # forces the XLA lane scan above 10 bits (escape hatch while
-        # real-HW parity for the ext kernel is fresh).
-        import jax as _jax
-        ext_ok = os.environ.get("FFV1_PALLAS_DEC_EXT", "1") \
-            not in ("0", "false")
-        self.use_pallas = (_jax.devices()[0].platform != "cpu"
-                           and (self.coded_bits <= 10 or
-                                (ext_ok and self.coded_bits <= 17)))
-        # Pallas lookup form: None = env default (gather); flipped to
-        # False by the staged dispatch retry when the gather form fails
-        # Mosaic lowering (the select-tree form is byte-identical)
-        self.pallas_gather = None
+        # range-coder decode scan for this device and coded width (the
+        # CUDA kernel on the GPU, the XLA lane scan on the CPU)
+        self.scan = None if self.golomb else device_scan(
+            self.coded_bits,
+            mesh.devices.flat[0] if mesh is not None else None)
 
         if self.golomb and not self.uniform:
             raise NotImplementedError(
-                "TPU Golomb-Rice decode requires a uniform slice grid; "
+                "device Golomb-Rice decode requires a uniform slice grid; "
                 "use the host decoder otherwise")
         # device VLC states for the Golomb path (drift, error_sum,
         # bias, count), GOP-persistent like the range-coder states
@@ -362,6 +348,26 @@ class TPUFFV1Decoder:
 
     # ------------------------------------------------------ fused path
 
+    def lane_inputs(self, parsed):
+        """Lane-major scan inputs from parsed packets: (bufs uint8[L,
+        cap], low, range, pos, buffer lengths), lane = stream *
+        n_slices + slice.  The cap is bucketed to a power of two to
+        bound recompiles."""
+        maxlen = max(len(s[0]) for p in parsed for s in p[1])
+        cap = max(4096, 1 << (maxlen - 1).bit_length())
+        bufs = np.zeros((self.L, cap), np.uint8)
+        lows = np.zeros(self.L, np.int32)
+        ranges = np.zeros(self.L, np.int32)
+        poss = np.zeros(self.L, np.int32)
+        buflens = np.zeros(self.L, np.int64)
+        for bi, (kf, sl, _ex) in enumerate(parsed):
+            for si, (buf, qidx, lo, ra, po) in enumerate(sl):
+                lane = bi * self.n_slices + si
+                bufs[lane, :len(buf)] = np.frombuffer(buf, np.uint8)
+                lows[lane], ranges[lane], poss[lane] = lo, ra, po
+                buflens[lane] = len(buf)
+        return bufs, lows, ranges, poss, buflens
+
     def submit_frames(self, pkts):
         """Async half: parse headers, upload buffers, dispatch the fused
         device scan without waiting (overlaps with the previous frame's
@@ -377,7 +383,7 @@ class TPUFFV1Decoder:
         if not (self.uniform and same_q):
             if self.rgb:
                 raise NotImplementedError(
-                    "TPU RGB decode requires a shared quant table "
+                    "device RGB decode requires a shared quant table "
                     "across slices; use the host decoder")
             planes_out = [self._decode_stream_fallback(bi, parsed[bi])
                           for bi in range(self.batch)]
@@ -390,20 +396,7 @@ class TPUFFV1Decoder:
         specs = tuple((w, h, sp * cc) for (w, h, sp) in self._plane_specs())
         total_cc = self._fresh_states(qidx0).shape[0]
 
-        # lane-major buffers (bucketed cap bounds recompiles)
-        maxlen = max(len(s[0]) for p in parsed for s in p[1])
-        cap = max(4096, 1 << (maxlen - 1).bit_length())
-        bufs = np.zeros((self.L, cap), np.uint8)
-        lows = np.zeros(self.L, np.int32)
-        ranges = np.zeros(self.L, np.int32)
-        poss = np.zeros(self.L, np.int32)
-        buflens = np.zeros(self.L, np.int64)
-        for bi, (kf, sl, _ex) in enumerate(parsed):
-            for si, (buf, qidx, lo, ra, po) in enumerate(sl):
-                lane = bi * self.n_slices + si
-                bufs[lane, :len(buf)] = np.frombuffer(buf, np.uint8)
-                lows[lane], ranges[lane], poss[lane] = lo, ra, po
-                buflens[lane] = len(buf)
+        bufs, lows, ranges, poss, buflens = self.lane_inputs(parsed)
 
         qt = self.qts[qidx0]
         five = bool(g.quant_tables[qidx0][3][127])
@@ -440,83 +433,17 @@ class TPUFFV1Decoder:
             db = jnp.asarray(bufs)
             if self.mesh is not None:
                 from .sharding import decode_lanes_sharded
-                # honor the decoder's own kernel gate (coded width <= 10,
-                # decoder.py:168-169): sharding.py would otherwise default
-                # to the Pallas kernel on any accelerator mesh and run it
-                # outside its supported schedule on deep-bit streams
-                try:
-                    planes_dev, states_out, low, rng, pos = \
-                        decode_lanes_sharded(
-                            self.mesh, db, states0, self.one_tab,
-                            self.zero_tab, qt, jnp.asarray(lows),
-                            jnp.asarray(ranges), jnp.asarray(poss), specs,
-                            self.bits, five, use_pallas=self.use_pallas)
-                except Exception as e:
-                    if not self.use_pallas:
-                        raise
-                    from ..log import WARNING, log
-                    log(WARNING, "tpu-dec", "sharded Pallas decode "
-                        f"failed ({type(e).__name__}: {e}); falling "
-                        "back to the sharded XLA scan")
-                    self.use_pallas = False
-                    planes_dev, states_out, low, rng, pos = \
-                        decode_lanes_sharded(
-                            self.mesh, db, states0, self.one_tab,
-                            self.zero_tab, qt, jnp.asarray(lows),
-                            jnp.asarray(ranges), jnp.asarray(poss), specs,
-                            self.bits, five, use_pallas=False)
-            elif self.use_pallas:
-                # staged fallback, as in the encoder's _dispatch_staged:
-                # Mosaic/compile errors surface at first dispatch; retry
-                # the byte-identical select-tree lookup form before
-                # dropping to the (also byte-identical) XLA lane scan —
-                # a lowering quirk of the gather form must not cost the
-                # kernel tier (transient runtime errors land here too;
-                # the original error is logged)
-                from ..log import WARNING, log
-                while True:
-                    try:
-                        if self.use_pallas:
-                            planes_dev, states_out, low, rng, pos = \
-                                rc_decode_planes_pallas(
-                                    db, states0, self.one_tab,
-                                    self.zero_tab, qt,
-                                    jnp.asarray(lows),
-                                    jnp.asarray(ranges),
-                                    jnp.asarray(poss), specs,
-                                    self.bits, five,
-                                    gather=self.pallas_gather)
-                        else:
-                            planes_dev, states_out, low, rng, pos = \
-                                rc_decode_planes_lanes(
-                                    db, states0, self.one_tab,
-                                    self.zero_tab, qt,
-                                    jnp.asarray(lows),
-                                    jnp.asarray(ranges),
-                                    jnp.asarray(poss), specs,
-                                    self.bits, five)
-                        break
-                    except Exception as e:
-                        if not self.use_pallas:
-                            raise
-                        if self.pallas_gather is not False:
-                            log(WARNING, "tpu-dec", "Pallas gather-"
-                                "form lookup failed "
-                                f"({type(e).__name__}: {e}); retrying "
-                                "with select-tree lookups")
-                            self.pallas_gather = False
-                        else:
-                            log(WARNING, "tpu-dec", "Pallas decode "
-                                f"kernel failed ({type(e).__name__}: "
-                                f"{e}); falling back to the XLA scan "
-                                "path")
-                            self.use_pallas = False
-            else:
                 planes_dev, states_out, low, rng, pos = \
-                    rc_decode_planes_lanes(
-                        db, states0, self.one_tab, self.zero_tab, qt,
-                        jnp.asarray(lows), jnp.asarray(ranges),
-                        jnp.asarray(poss), specs, self.bits, five)
+                    decode_lanes_sharded(
+                        self.mesh, db, states0, self.one_tab,
+                        self.zero_tab, qt, jnp.asarray(lows),
+                        jnp.asarray(ranges), jnp.asarray(poss), specs,
+                        self.bits, five)
+            else:
+                planes_dev, states_out, low, rng, pos = rc_decode_planes(
+                    self.scan, db, states0, self.one_tab, self.zero_tab,
+                    qt, jnp.asarray(lows), jnp.asarray(ranges),
+                    jnp.asarray(poss), specs, self.bits, five)
             self.states = states_out
             # device-side postprocess: assemble full frames (inverse
             # block reshape) and narrow to the wire dtype, so the

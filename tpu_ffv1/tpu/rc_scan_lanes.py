@@ -1,11 +1,9 @@
 """Lane-major device range coding: many slices/streams per scan step.
 
-The production encode kernel.  One lax.scan over pixel index; every
-carried quantity is vectorized over L lanes (slice x stream batch).  This
-matters because the per-step critical path on TPU is dominated by
-vector->scalar moves and per-lane dynamic memory ops; lane-major layout
-turns the low/range chain into pure (L,)-vector arithmetic with static
-indexing (measured ~30x faster than the scalar-carry formulation).
+The XLA encode scan (the CPU path, and the CUDA kernel's reference).
+One lax.scan over pixel index; every carried quantity is vectorized over
+L lanes (slice x stream batch), so the low/range chain is pure
+(L,)-vector arithmetic with static indexing.
 
 Structure per step (see rc_scan_fast.py for the derivation):
   1. flat gather of each lane's 32-byte context row
@@ -43,10 +41,8 @@ def rc_encode_scan_lanes(ctx, diff, active, states0, one_tab, zero_tab,
     """
     order = chain_order(bits)
     L, CC = states0.shape[0], states0.shape[1]
-    # state transitions via one-hot contraction on the MXU instead of
-    # vector gathers T[row] — XLA:TPU lowers per-element gathers ~10x
-    # slower than the 256-wide compare + (L,32,256)x(256,2) matmul
-    # (measured 16.6us -> 4.7us per step incl. row traffic)
+    # state transitions via a one-hot (L,32,256)x(256,2) int8
+    # contraction instead of vector gathers T[row]
     t_both = jnp.stack([zero_tab.astype(jnp.int8),
                         one_tab.astype(jnp.int8)], axis=1)  # (256, 2)
     iota256 = jnp.arange(256, dtype=jnp.int32)
@@ -132,12 +128,8 @@ def rc_encode_scan_lanes_unrolled(ctx, diff, active, states0, one_tab,
     are dropped except the last occurrence, preserving exact sequential
     semantics.
 
-    MEASURED (v5e, L=24, N=129600): no win over the plain kernel —
-    XLA:TPU scatter cost scales with row count (~0.6us/row at small
-    batches), so batching U pixels doesn't amortize it.  Scatter cost IS
-    sub-linear in lane count, so the production throughput lever is
-    stream batching (TPUFFV1BatchEncoder), not unrolling.  Kept for
-    reference and for backends with per-op-dominated scatters.
+    The CPU path's encode scan (with U = 2); on the GPU the CUDA
+    kernel replaces it.
 
     Requires N % unroll == 0 (pad with active=False lanes).
     Returns prov/valid shaped (N, L, S) in pixel order, same as
@@ -252,8 +244,8 @@ def finalize_lanes(prov, valid, low, rng, prefix, prefix_len):
     prov: int32[N, L, S]; valid: bool[N, L, S]; prefix: int32[L, PCAP];
     prefix_len: int32[L].  Returns (bytes uint8[L, CAP], count int32[L]).
 
-    Compaction is sort-based (stable key sort compiles/runs well on TPU;
-    scatter with giant 2D index arrays stalls the compiler) and the carry
+    Compaction is sort-based (a stable key sort; scatter with giant 2D
+    index arrays stalls the compiler) and the carry
     suffix recurrence c_k = g_k | (p_k & c_{k+1}) is evaluated with a
     native cummax over propagate-run segments instead of a custom
     associative_scan (see core.rac.carry_resolve for semantics).
@@ -390,7 +382,7 @@ def finalize_lanes_resolve(prov, valid, low, rng, prefix, prefix_len):
 
 @functools.partial(jax.jit, static_argnames=("s2",))
 def finalize_packed(packed, low, rng, prefix, prefix_len, s2: int = 4):
-    """Finalize from the raw Pallas kernel output.
+    """Finalize from the packed lane-scan output.
 
     packed: int32[N, S, L] with bit 20 = emit flag and bits 0..16 the
     provisional value.  Per-pixel slot compaction to S2 slots is done
@@ -442,29 +434,6 @@ def finalize_packed(packed, low, rng, prefix, prefix_len, s2: int = 4):
         M = N * S2
     flat_b = jnp.transpose(slots, (2, 0, 1)).reshape(L, M)
     flat_v = jnp.transpose(vld, (2, 0, 1)).reshape(L, M)
-    out, count = _resolve_compact(flat_b, flat_v, low, rng,
-                                  prefix, prefix_len)
-    return out, count, overflow
-
-
-@jax.jit
-def finalize_compact(cm, low, rng, prefix, prefix_len):
-    """Finalize from the in-kernel-compacted Pallas output.
-
-    cm: int32[N, 8, L] rows [slot0..slot3 (prov_value format), count,
-    overflow, 0, 0].  Returns (bytes uint8[L, T], count int32[L],
-    overflow bool[L]) — on overflow the caller must re-encode the frame
-    on the XLA scan path (the raw slots no longer exist).
-    """
-    S2 = 4
-    N, _, L = cm.shape
-    slots = cm[:, :S2, :]                                 # (N, 4, L)
-    total_pix = cm[:, S2, :]                              # (N, L)
-    overflow = jnp.max(cm[:, S2 + 1, :], axis=0) > 0      # (L,)
-    vld = (jnp.arange(S2, dtype=jnp.int32)[None, :, None]
-           < total_pix[:, None, :])
-    flat_b = jnp.transpose(slots, (2, 0, 1)).reshape(L, N * S2)
-    flat_v = jnp.transpose(vld, (2, 0, 1)).reshape(L, N * S2)
     out, count = _resolve_compact(flat_b, flat_v, low, rng,
                                   prefix, prefix_len)
     return out, count, overflow
@@ -628,29 +597,6 @@ def finalize_packed_hostcompact(packed, low, rng, prefix, prefix_len,
            < total_pix[:, None, :])
     gcount, overflow, flat_b, flat_v = _group_compact(
         slots, vld, overflow, G, C)
-    return _hostcompact_slab(flat_b, flat_v, gcount, overflow, low,
-                             rng, prefix, prefix_len)
-
-
-@jax.jit
-def finalize_compact_hostcompact(cm, low, rng, prefix, prefix_len):
-    """No-sort finalize from the IN-KERNEL-compacted Pallas output
-    (rc_encode_pallas_compact): the per-pixel (L1) compaction already
-    happened inside the kernel, so this only runs the 16-px group
-    level + carry resolution and packs the hostcompact slab — the
-    round-5 measured split put L1's XLA masked reductions at ~60 ms
-    and the sort at ~63 ms of the batch-5 1080p step; this path pays
-    neither on device.  Same slab contract/consumer
-    (native.compact_groups) as finalize_packed_hostcompact."""
-    S2 = 4
-    N, _, L = cm.shape
-    slots = cm[:, :S2, :]
-    total_pix = cm[:, S2, :]
-    overflow = jnp.max(cm[:, S2 + 1, :], axis=0) > 0
-    vld = (jnp.arange(S2, dtype=jnp.int32)[None, :, None]
-           < total_pix[:, None, :])
-    gcount, overflow, flat_b, flat_v = _group_compact(
-        slots, vld, overflow, 16, 24)
     return _hostcompact_slab(flat_b, flat_v, gcount, overflow, low,
                              rng, prefix, prefix_len)
 

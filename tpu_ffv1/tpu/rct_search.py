@@ -10,8 +10,7 @@ exactly with a chunked split scheme — per-pixel costs are < 2^19 (hbd)
 so CHUNK-sized partial sums stay < 2^31, and the chunk sums are then
 split into 16-bit hi/lo parts whose cross-chunk sums also stay in
 int32.  The host recombines hi*2^16 + lo in int64 and argmins, so no
-int64 lanes are needed (jax defaults to x64-off, and TPU int64 is
-emulated).  The 15 candidates are evaluated as unrolled reductions so
+int64 lanes are needed (jax defaults to x64-off).  The 15 candidates are evaluated as unrolled reductions so
 the (h, w) cost tensor is the only live intermediate per candidate.
 """
 from __future__ import annotations

@@ -59,9 +59,9 @@ def quant_spec(qt_np):
 
     Each normative subtable, viewed as a function of the SIGNED byte
     gradient d in [-128, 127] (index (d & 0xFF), ffv1.h:181-189), is a
-    monotone step function with <= 10 change points (11 levels).  On TPU
-    a 256-entry gather over an image-sized index array is ~10x slower
-    than 10 fused compare+multiply-adds, so the stencil evaluates
+    monotone step function with <= 10 change points (11 levels), so the
+    stencil replaces a 256-entry gather over an image-sized index array
+    with 10 fused compare+multiply-adds:
         q(d) = base + sum_j inc_j * (d >= t_j)
     Returns (thresholds int32 (5, NT), increments int32 (5, NT),
     bases int32 (5,)) padded with never-true thresholds (128).
@@ -106,8 +106,8 @@ def residuals_and_contexts(s: jnp.ndarray, quant_table: jnp.ndarray,
     ``quant_table``: (5, 256) int32.  ``five_input``: static flag for the
     5-gradient model (quant_table[3][127] != 0, ffv1.h:178).  ``qspec``:
     optional precomputed quant_spec() arrays — replaces the three/five
-    256-entry gathers with fused compare+MAC chains (the production TPU
-    path; measured ~8x faster at 1080p).
+    256-entry gathers with fused compare+MAC chains (the production
+    path).
     Returns (ctx >= 0 int32 (H,W), diff int32 (H,W)) after the sign fold
     (ffv1enc.c:312-317).
     """

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is slice threads + frame pipelining over
 POSIX threads (SURVEY §2.3, pthread_slice.c / pthread_frame.c).  The
-TPU-native equivalent: FFV1 slices are fully independent bitstreams, so a
+device equivalent: FFV1 slices are fully independent bitstreams, so a
 frame's (or a batch of frames') slice lanes shard across a device mesh on
 a single "slices" axis; the only cross-device data motion is gathering
 per-slice byte counts/payloads for footer-chain assembly — exactly the
@@ -13,8 +13,9 @@ NCCL-free analog called out in SURVEY §5.
 finalizes them locally (zero collectives — slices are independent by
 format design, ffv1.c:117-145), and the host assembles the footer chain
 from the gathered outputs.  The compiled function is cached module-level
-(one trace per (mesh, bits, path) — jax.jit handles shape keying), fixing
-the per-call retrace the round-1 version had.
+(one trace per (mesh, bits)).  The scan is the one cuda_scan.scan_impl
+chooses for the mesh's platform: the CUDA kernel's FFI call runs inside
+``shard_map`` on each card's local lanes.
 
 ``TPUFFV1Encoder(mesh=...)`` (tpu/encoder.py) routes its fused frame
 pipeline through the same shard_map; tests/test_sharding.py asserts the
@@ -23,14 +24,12 @@ device-count invariance analog of FATE's thread-count invariance
 """
 from __future__ import annotations
 
-import functools
-
 import jax
-import jax.numpy as jnp
+import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from .rc_scan_lanes import finalize_packed_full, rc_encode_scan_lanes
-from .rc_pallas import rc_encode_pallas_packed
+from .cuda_scan import device_scan, rc_decode_planes, rc_encode_packed
+from .rc_scan_lanes import finalize_packed_full
 
 _FN_CACHE: dict = {}
 
@@ -40,36 +39,28 @@ def make_mesh(n_devices: int | None = None, axis: str = "slices") -> Mesh:
     if n_devices is not None:
         if len(devs) < n_devices:
             raise ValueError(
-                f"need {n_devices} devices, have {len(devs)}; on a "
-                f"single-host run set JAX_PLATFORMS=cpu and XLA_FLAGS="
-                f"--xla_force_host_platform_device_count={n_devices}")
+                f"need {n_devices} devices, have {len(devs)} "
+                f"({devs[0].platform})")
         devs = devs[:n_devices]
-    import numpy as np
     return Mesh(np.array(devs), (axis,))
 
 
-def _sharded_fn(mesh: Mesh, bits: int, use_pallas: bool, chunk: int):
-    """Build (once per (mesh, bits, path)) the jitted sharded encode."""
-    key = (id(mesh), mesh.axis_names, bits, use_pallas, chunk)
+def _sharded_fn(mesh: Mesh, bits: int):
+    """Build (once per (mesh, bits)) the jitted sharded encode."""
+    key = (id(mesh), mesh.axis_names, bits)
     fn = _FN_CACHE.get(key)
     if fn is not None:
         return fn
+    scan = device_scan(bits, mesh.devices.flat[0])
     axis = mesh.axis_names[0]
     lane = P(axis)
     repl = P()
 
     def local(ctx, diff, active, states0, one_tab, zero_tab, lows,
               ranges, prefixes, plens):
-        if use_pallas:
-            packed, low, rng, states_out = rc_encode_pallas_packed(
-                ctx, diff, active, states0, one_tab, zero_tab,
-                lows, ranges, bits, chunk)
-        else:
-            prov, valid, low, rng, states_out = rc_encode_scan_lanes(
-                ctx, diff, active, states0, one_tab, zero_tab,
-                lows, ranges, bits)
-            packed = jnp.moveaxis(
-                prov + (valid.astype(jnp.int32) << 20), 1, 2)
+        packed, low, rng, states_out = rc_encode_packed(
+            scan, ctx, diff, active, states0, one_tab, zero_tab, lows,
+            ranges, bits)
         out, counts = finalize_packed_full(packed, low, rng,
                                            prefixes, plens)
         return out, counts, states_out
@@ -78,44 +69,39 @@ def _sharded_fn(mesh: Mesh, bits: int, use_pallas: bool, chunk: int):
         local, mesh=mesh,
         in_specs=(lane, lane, lane, lane, repl, repl,
                   lane, lane, lane, lane),
-        out_specs=(lane, lane, lane))
+        out_specs=(lane, lane, lane),
+        # FFI out_shapes carry no vma metadata; outputs are plainly
+        # lane-sharded (zero collectives)
+        check_vma=False)
     fn = jax.jit(smapped)
     _FN_CACHE[key] = fn
     return fn
 
 
-def _sharded_dec_fn(mesh: Mesh, specs: tuple, bits: int,
-                    five: bool, use_pallas: bool):
-    """Build (once per (mesh, geometry, path)) the jitted sharded
-    decode.  Decode slices are independent bitstreams exactly like
-    encode slices (the decoder's slice threads, ffv1dec.c:991-996), so
-    the lane axis shards with zero collectives; only the reconstructed
-    planes are gathered for frame assembly."""
-    key = ("dec", id(mesh), mesh.axis_names, specs, bits, five,
-           use_pallas)
+def _sharded_dec_fn(mesh: Mesh, specs: tuple, bits: int, five: bool):
+    """Build (once per (mesh, geometry)) the jitted sharded decode.
+    Decode slices are independent bitstreams exactly like encode slices
+    (the decoder's slice threads, ffv1dec.c:991-996), so the lane axis
+    shards with zero collectives; only the reconstructed planes are
+    gathered for frame assembly."""
+    key = ("dec", id(mesh), mesh.axis_names, specs, bits, five)
     fn = _FN_CACHE.get(key)
     if fn is not None:
         return fn
-    from .dec_scan_lanes import rc_decode_planes_lanes
-    from .rc_dec_pallas import rc_decode_planes_pallas
+    scan = device_scan(bits, mesh.devices.flat[0])
     axis = mesh.axis_names[0]
     lane = P(axis)
     repl = P()
 
     def local(bufs, states, one_tab, zero_tab, qt, low0, range0, pos0):
-        scan = rc_decode_planes_pallas if use_pallas \
-            else rc_decode_planes_lanes
-        return scan(bufs, states, one_tab, zero_tab, qt,
-                    low0, range0, pos0, specs, bits, five)
+        return rc_decode_planes(scan, bufs, states, one_tab, zero_tab, qt,
+                                low0, range0, pos0, specs, bits, five)
 
     smapped = jax.shard_map(
         local, mesh=mesh,
         in_specs=(lane, lane, repl, repl, repl, lane, lane, lane),
         # (planes tuple, states_out, low, rng, pos) — all lane-major
         out_specs=((lane,) * len(specs), lane, lane, lane, lane),
-        # Pallas out_shapes carry no vma metadata; outputs are plainly
-        # lane-sharded (zero collectives), so the vma lint is off as in
-        # the encode path
         check_vma=False)
     fn = jax.jit(smapped)
     _FN_CACHE[key] = fn
@@ -124,27 +110,23 @@ def _sharded_dec_fn(mesh: Mesh, specs: tuple, bits: int,
 
 def decode_lanes_sharded(mesh: Mesh, bufs, states, one_tab, zero_tab,
                          qt, low0, range0, pos0, specs: tuple,
-                         bits: int, five: bool,
-                         use_pallas: bool | None = None):
+                         bits: int, five: bool):
     """Shard the decode lane dimension over the mesh (the multi-chip
     analog of the decoder's slice-thread pool).  Mirrors
     encode_lanes_sharded; returns what rc_decode_planes_lanes returns,
     lane-sharded."""
-    if use_pallas is None:
-        use_pallas = mesh.devices.flat[0].platform not in ("cpu",)
     L = bufs.shape[0]
     ndev = mesh.devices.size
     if L % ndev:
         raise ValueError(f"lane count {L} not divisible by mesh size "
                          f"{ndev}; pad with inactive lanes")
-    fn = _sharded_dec_fn(mesh, specs, bits, five, use_pallas)
+    fn = _sharded_dec_fn(mesh, specs, bits, five)
     return fn(bufs, states, one_tab, zero_tab, qt, low0, range0, pos0)
 
 
 def encode_lanes_sharded(mesh: Mesh, ctx, diff, active, states0,
                          one_tab, zero_tab, lows, ranges, prefixes, plens,
-                         bits: int, use_pallas: bool | None = None,
-                         chunk: int = 512):
+                         bits: int):
     """Shard the lane dimension of the production encode over the mesh.
 
     ctx/diff/active are (L, N) lane-major streams; all lane-major arrays
@@ -152,17 +134,12 @@ def encode_lanes_sharded(mesh: Mesh, ctx, diff, active, states0,
     replicate.
     Returns (bytes uint8[L, CAP], counts int32[L], states_out) sharded
     the same way; the host gathers what it consumes for footer assembly.
-
-    ``use_pallas`` defaults to True on real accelerators (the production
-    kernel), False on CPU meshes (Pallas-CPU is interpreter-only).
     """
-    if use_pallas is None:
-        use_pallas = mesh.devices.flat[0].platform not in ("cpu",)
     L = ctx.shape[0]
     ndev = mesh.devices.size
     if L % ndev:
         raise ValueError(f"lane count {L} not divisible by mesh size "
                          f"{ndev}; pad with inactive lanes")
-    fn = _sharded_fn(mesh, bits, use_pallas, chunk)
+    fn = _sharded_fn(mesh, bits)
     return fn(ctx, diff, active, states0,
               one_tab, zero_tab, lows, ranges, prefixes, plens)
